@@ -29,8 +29,7 @@ compile time and is measured here exactly.
 Usage:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
           python bench_scaling.py [--scale0 13] [--strong]
 
-Prints one JSON line per (algorithm, d) plus a summary line; the
-committed results table lives in PERF.md ("Scaling evidence").
+Prints one JSON line per (algorithm, d) plus a summary line.
 """
 
 import argparse

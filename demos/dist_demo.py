@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Distributed demo — the TPU replacement for the reference's
+"""Distributed demo — the device-mesh replacement for the reference's
 pthread/openmp/MPI demos: BFS, PageRank, and triangle counting over a
 device mesh with psum frontier exchange.
 
-Run on 1 real chip or N virtual devices:
+Run on 1 or more GPUs, or on N virtual CPU devices:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python demos/dist_demo.py
 """

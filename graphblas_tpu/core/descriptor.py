@@ -2,7 +2,7 @@
 
 Reference: ``Source/GB_Descriptor_get.c``, ``Include/GraphBLAS.h:2737-2820``.
 Fields: OUTP (REPLACE), MASK (SCMP), INP0/INP1 (TRAN), AxB method hint, and
-nthreads (which on TPU becomes a block-size / device-mesh hint).
+nthreads (which here becomes a block-size / device-mesh hint).
 """
 
 from __future__ import annotations

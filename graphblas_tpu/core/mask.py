@@ -1,6 +1,6 @@
 """The accumulate/mask epilogue: C<M> = accum(C, T).
 
-Direct TPU transcription of the reference's executable specs
+Direct array transcription of the reference's executable specs
 ``Test/GB_spec_accum.m`` (also embedded at ``GB_accum_mask.c:59-117``) and
 ``Test/GB_spec_mask.m`` (embedded at ``GB_mask.c:29-120``).  Unlike the
 reference — which routes small updates through ``GB_subassign_kernel`` and

@@ -3,7 +3,7 @@
 Reference: ``Source/GB_Monoid_new.c``, ``GxB_Monoid_terminal_new.c`` and the
 44 predefined monoids in ``Include/GraphBLAS.h:5100-5162``.  The terminal
 value enables early exit in reductions (MIN/MAX/LOR/LAND/EQ and integer
-TIMES); on TPU we use it both to short-circuit host-side iteration and to
+TIMES); here we use it both to short-circuit host-side iteration and to
 keep reductions exact.
 """
 

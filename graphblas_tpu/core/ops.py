@@ -2,7 +2,7 @@
 
 The reference stamps out 45 unary and 256 binary typed operators from a C
 template (``Source/Template/GB_ops_template.{c,h}``, ``Source/GB_ops.c``).
-On TPU there is no need for code generation: an operator is a JAX-traceable
+On JAX there is no need for code generation: an operator is a JAX-traceable
 function plus type metadata, and ``jax.jit`` monomorphizes per dtype for
 free.  Integer division follows the reference's MATLAB-style semantics
 (``Source/GB.h:2769-2900``): x/0 is 0 for x==0, +/-"infinity" (type

@@ -4,7 +4,7 @@ Reference: three scopes (``Include/GraphBLAS.h:2917-2930``) —
 global ``GxB_Global_Option_set/get`` (HYPER ratio, FORMAT, MODE,
 NTHREADS), per-matrix ``GxB_Matrix_Option_set``, per-call descriptors.
 
-TPU mapping: HYPER ratio drives CSR<->hypersparse conformance
+Mapping here: HYPER ratio drives CSR<->hypersparse conformance
 (``sparse.hyper.hyper_conform``, the GB_to_hyper_conform rule) at
 container boundaries; FORMAT by-row/by-col survives as the default
 transpose orientation; MODE blocking/non-blocking controls whether

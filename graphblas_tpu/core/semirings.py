@@ -2,7 +2,7 @@
 
 The reference predefines 960 semirings and stamps a specialized C worker
 file for each (``Source/Generated/``, 247 KLoC; generated by
-``Source/axb.m`` from ``Source/Generator/GB_AxB.c``).  On TPU the entire
+``Source/axb.m`` from ``Source/Generator/GB_AxB.c``).  On JAX the entire
 code-generation layer disappears: a semiring is a pair of traceable
 functions, and ``jax.jit`` specializes the handful of polymorphic matmul
 kernels per (monoid, mult, dtype) at trace time.

@@ -1,4 +1,4 @@
-"""GraphBLAS type system, TPU-native.
+"""GraphBLAS type system on JAX dtypes.
 
 The reference (SuiteSparse:GraphBLAS v2.3.3) defines 11 built-in types as
 opaque structs (``Source/GB_ops.c:21-48``) plus user-defined types of
@@ -35,7 +35,7 @@ class Type:
     (struct types, cf. reference ``GrB_Type_new``, ``Demo/Source/
     usercomplex.c``) ``fields`` maps field names to member Types and values
     are carried as dicts of arrays (struct-of-arrays layout, which is the
-    TPU-friendly representation of arrays-of-structs).
+    accelerator-friendly representation of arrays-of-structs).
     """
 
     name: str

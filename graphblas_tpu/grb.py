@@ -1,7 +1,7 @@
 """GrB_* / GxB_* compatibility facade.
 
 The reference's public surface is 309 C functions plus ``_Generic``
-polymorphic macros (``Include/GraphBLAS.h``).  The TPU framework's
+polymorphic macros (``Include/GraphBLAS.h``).  This framework's
 native API is Pythonic (:mod:`graphblas_tpu`), but this module exposes
 the C-style names 1:1 so code written against the reference's API maps
 mechanically::
@@ -62,7 +62,7 @@ def GrB_Type_new(size_or_fields) -> _t.Type:
     if isinstance(size_or_fields, dict):
         return _t.Type.udt("user_type", **size_or_fields)
     raise TypeError("pass {field: Type} — opaque byte sizes have no "
-                    "TPU representation")
+                    "device representation")
 
 
 # -- init / finalize / error ------------------------------------------------
@@ -76,7 +76,7 @@ def GrB_init(mode=GrB_NONBLOCKING):
 
 
 def GxB_init(mode=GrB_NONBLOCKING, *malloc_vtable):
-    # custom allocators are jax's concern on TPU; accepted for parity
+    # custom allocators are jax's concern here; accepted for parity
     return GrB_init(mode)
 
 

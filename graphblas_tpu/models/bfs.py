@@ -14,7 +14,7 @@ The *_check variants (``bfs5m_check.c`` / ``bfs6_check.c``) differ only by
 error checking in C; here errors are exceptions, so one implementation
 serves both — aliases are exported for API parity.
 
-TPU notes: each level is one masked SpMV on the MXU/VPU (bitmap backend)
+Device notes: each level is one masked SpMV as a matmul (bitmap backend)
 or a gather/segment-reduce (CSR backend); the whole level loop can also
 run fully jitted via ``lax.while_loop`` (``bfs_jit``) which is the form
 used by the benchmark and the distributed driver.

@@ -3,7 +3,7 @@
 The reference's MPI program gives each rank a contiguous slice of A's
 tuples, computes ``GxB_kron(my_A, B)`` locally, and writes its block —
 zero inter-rank communication (``kron_mpi.c:56-96``,
-``kron_submatrix.c:138-141``).  The TPU-native equivalent keeps that
+``kron_submatrix.c:138-141``).  The device-mesh equivalent keeps that
 communication-free 1-D tuple partition but maps shards onto the device
 mesh (or hosts) instead of MPI ranks; each shard is a pure tuple
 computation: tuple (ia,ja,xa) of A x tuple (ib,jb,xb) of B produces

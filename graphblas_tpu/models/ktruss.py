@@ -7,7 +7,7 @@ edge count stops changing) and ``Extras/ktruss/allktruss.c`` /
 ``allktruss_graphblas.c`` (sweep k = 3.. until the truss is empty,
 reusing the k-truss of k-1 as the starting point).
 
-Each iteration is one masked MXU matmul + one select; on the bitmap
+Each iteration is one masked matmul + one select; on the bitmap
 backend the plus_land support count is the pattern matmul itself.
 """
 

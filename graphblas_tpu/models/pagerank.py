@@ -331,7 +331,8 @@ def _pagerank_jit_impl(Cvals, r0, a, c, iters):
         s = a * jnp.sum(r)
         r = c * r
         r = jnp.matmul(r[None, :], Cvals,
-                       preferred_element_type=Cvals.dtype)[0]
+                       preferred_element_type=Cvals.dtype,
+                       precision=jax.lax.Precision.HIGHEST)[0]
         return r + s
     return jax.lax.fori_loop(0, iters, body, r0)
 

@@ -10,7 +10,7 @@ adjacency matrix A (E = edge incidence, L = tril(A), U = triu(A)):
   4 Sandia2:   ntri = sum(sum((U*U) .* U))
   5 SandiaDot: ntri = sum(sum((L*U') .* L))   (dot-product method)
 
-On TPU every masked mxm is a single MXU pattern-matmul with the mask
+On the bitmap backend every masked mxm is a single pattern-matmul with the mask
 fused; the ".*" masks are the mxm mask argument exactly as in the
 reference.  ``tricount_prep`` builds L and U with GxB_select (tril/triu).
 """

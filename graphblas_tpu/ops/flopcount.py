@@ -2,21 +2,21 @@
 
 Reference: ``GB_AxB_flopcount.c`` (per-column flops of C<M>=A*B, used to
 discard cheap masks and to plan balanced slices) and ``GB_AxB_select.c``
-(Gustavson vs heap vs dot heuristic).  The TPU build keeps the idea and
+(Gustavson vs heap vs dot heuristic).  This library keeps the idea and
 changes the menu: the candidate engines are
 
-  dense-mxu  — one bitmap matmul on the MXU (best when density or n is
-               small enough that n*k*m MACs are cheaper than moving
-               sparse metadata)
-  bsr        — block-sparse tile-triple products (pallas_bsr); work
-               scales with nonempty 128^3 tile triples
+  dense-mxu  — one bitmap matmul on the matrix units (best when density
+               or n is small enough that n*k*m MACs are cheaper than
+               moving sparse metadata)
+  bsr        — block-sparse tile-triple products (``sparse/bsr.py``);
+               work scales with nonempty 128^3 tile triples
   bitpack    — per-masked-edge row intersection (gather+popcount); work
                scales with nnz(M) * n/32 lanes
-  generic    — k-blocked VPU scan (any semiring / UDT)
+  generic    — k-blocked scan (any semiring / UDT)
 
-Selection compares modeled device work at the engines' measured
-throughputs; ``method_used`` is recorded for introspection (the
-reference's per-matrix ``AxB_method_used``, ``GB_matrix.h:351``).
+Selection compares modeled device work at the engines' throughputs;
+``method_used`` is recorded for introspection (the reference's
+per-matrix ``AxB_method_used``, ``GB_matrix.h:351``).
 """
 
 from __future__ import annotations
@@ -55,12 +55,12 @@ def axb_flopcount(A_pattern, B_pattern, M_pattern=None) -> int:
     return int((Bp.T.astype(np.int64) @ acol).sum())
 
 
-# rough measured per-op throughputs on v5e (ops/sec); ratios matter,
-# not absolutes — re-profile per generation
-_DENSE_MACS_PER_S = 2.0e14      # int8/bf16 MXU effective
-_TILE_MACS_PER_S = 1.8e14      # pallas BSR
+# per-op throughputs (ops/sec): unmeasured routing weights on the card
+# (ROADMAP 3.3); only their ratios steer the choice
+_DENSE_MACS_PER_S = 2.0e14      # int8/bf16 matmul effective
+_TILE_MACS_PER_S = 1.8e14      # BSR tile triples
 _BITPACK_LANES_PER_S = 5.0e9   # gather-bound word-AND-popcount lanes
-_GENERIC_OPS_PER_S = 5.0e11    # VPU elementwise
+_GENERIC_OPS_PER_S = 5.0e11    # elementwise
 _ESC_LANES_PER_S = 2.0e9       # sort-bound expand/sort/compress lanes
 
 # a dense engine is only *feasible* when the bitmap operands/output fit
@@ -78,7 +78,7 @@ def choose_axb_method(m: int, k: int, n: int,
                       tile: int = 128,
                       est_flops: Optional[int] = None) -> str:
     """Pick the cheapest *feasible* engine by modeled device time
-    (``GB_AxB_select.c:93-159`` analogue, with the TPU engine menu).
+    (``GB_AxB_select.c:93-159`` analogue, with this library's engines).
 
     ``est_flops``: expected multiply count for the sparse ESC engine
     (exact flopcount or the annz*bnnz/k estimate); when given, the

@@ -2,7 +2,7 @@
 
 Reference: ``Source/GB_reduce_to_column.c`` (w<m> = accum(w, sum(A)) across
 rows) and ``GB_reduce_to_scalar.c`` (linear scan with terminal early-exit).
-On TPU a reduction is one fused VPU pass; the "terminal" optimization is
+On the device a reduction is one fused pass; the "terminal" optimization is
 moot inside a single fused kernel but monoid terminals are still used by
 host-side iteration loops (e.g. BFS convergence tests).
 """

@@ -1,4 +1,4 @@
-"""Distribution over TPU meshes: sharded containers, collective-backed
+"""Distribution over device meshes: sharded containers, collective-backed
 GraphBLAS ops, and scaled graph algorithms (SURVEY.md §7 step 8)."""
 
 from .mesh import make_mesh, row_sharding, replicated, P, Mesh

@@ -141,7 +141,8 @@ def _pagerank_spmd(mesh: Mesh, iters: int, n: int):
             s = a_scalar * jnp.sum(r)
             rblk = jax.lax.dynamic_slice(0.85 * r, (row0,), (blk,))
             part = jnp.matmul(rblk[None, :], Cv,
-                              preferred_element_type=Cv.dtype)[0]
+                              preferred_element_type=Cv.dtype,
+                              precision=jax.lax.Precision.HIGHEST)[0]
             r = jax.lax.psum(part, "i") + s
             return jnp.where(valid, r, 0)
 
@@ -185,7 +186,8 @@ def pagerank_step_sharded(mesh: Mesh):
         s = a_scalar * jnp.sum(r)
         rblk = jax.lax.dynamic_slice(0.85 * r, (di * blk,), (blk,))
         part = jnp.matmul(rblk[None, :], Cv,
-                          preferred_element_type=Cv.dtype)[0]
+                          preferred_element_type=Cv.dtype,
+                          precision=jax.lax.Precision.HIGHEST)[0]
         return jax.lax.psum(part, "i") + s
     return jax.jit(shard_map(
         local, mesh=mesh,
@@ -199,7 +201,7 @@ def pagerank_step_sharded(mesh: Mesh):
 
 def _tricount_spmd(mesh: Mesh):
     def local(Lp, Up_full):
-        # this device's row block of (L*U').*L : one MXU matmul with the
+        # this device's row block of (L*U').*L : one matmul with the
         # mask applied in-register; count-sum via psum.
         prod = jnp.matmul(Lp.astype(jnp.float32),
                           Up_full.astype(jnp.float32).T,

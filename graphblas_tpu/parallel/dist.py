@@ -148,7 +148,7 @@ def _vxm_shard_fn(sr: Semiring):
                 tv, ident)
         else:
             tv = jnp.where(tp_loc, tv, jnp.asarray(ident, tv.dtype))
-        # combine partials across row shards.  For MXU semirings the
+        # combine partials across row shards.  For matmul semirings the
         # pattern-OR + monoid-sum both reduce with psum-style collectives.
         tp = jax.lax.psum(tp_loc.astype(jnp.int32), "i") > 0
         tv = _monoid_psum(sr, tv)

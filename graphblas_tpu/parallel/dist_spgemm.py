@@ -1,4 +1,4 @@
-"""Sharded-CSR masked SpGEMM: B slabs rotate the ICI ring.
+"""Sharded-CSR masked SpGEMM: B slabs rotate around a ring of devices.
 
 C<M> = A *.sr* B with A, B, and M all row-slabbed over a 1-D mesh at
 O(nnz/d) per device.  Each of the d steps, every device computes the
@@ -136,10 +136,9 @@ def _spgemm_prog(mesh: Mesh, sr: Semiring, d: int, blkA: int, blkB: int,
             kk = ai - base
             valid = live & (kk >= 0) & (kk < blkB)
             kkc = jnp.clip(kk, 0, blkB - 1)
-            # int32 lane arithmetic: a 64-bit cumsum inside shard_map
-            # compiles to an emulated (hi,lo) reduce-window that blows
-            # the VMEM scope on TPU; per-device per-step flops < 2^31
-            # is a non-binding limit at any practical chunking
+            # int32 lane arithmetic (half the bytes of a 64-bit
+            # cumsum); per-device per-step flops < 2^31 is a
+            # non-binding limit at any practical chunking
             deg = jnp.where(
                 valid, b_rowptr[kkc + 1] - b_rowptr[kkc],
                 jnp.int32(0))

@@ -3,7 +3,7 @@
 The reference's only distribution story is MPI rank-slicing with zero
 collectives (``Extras/ExactKronGen/kron_mpi.c``) plus a never-built
 slice-parallel AxB design (``Source/GB_AxB_parallel.c:52-74``).  The
-TPU-native replacement: matrices live block-sharded on a
+Replacement here: matrices live block-sharded on a
 ``jax.sharding.Mesh`` and every distributed op is a ``shard_map`` whose
 collectives (psum / all_gather / ppermute) ride the ICI.
 """

@@ -7,19 +7,15 @@ from .spmv import csr_mxv, csr_vxm, segment_reduce
 from .spgemm import (edge_intersection_counts, masked_spgemm_counts,
                      tricount_sparse, ktruss_sparse)
 from .bsr import (tile_pattern, tile_pattern_from_coo, tile_matrix,
-                  bsr_masked_count,
+                  bsr_masked_mm, masked_mxm,
                   tricount_bsr, TilePattern)
 from .ewise import (csr_ewise_add, csr_ewise_mult, csr_apply,
                     csr_select, csr_reduce_rows, csr_reduce_scalar)
 from .algorithms import bfs_csr, pagerank_csr
-from .pallas_bsr import (bsr_masked_mm_pallas, bsr_masked_count_pallas,
-                         tricount_bsr_pallas, masked_mxm)
 from .esc import csr_spgemm
-from .window import (build_window_plan, build_band_plan,
-                     window_masked_mm, window_masked_count_sum)
-from .pallas_window import (window_count_partials,
-                            window_masked_mm_pallas,
-                            tricount_band_partials)
+from .window import (build_window_plan, window_masked_mm,
+                     window_masked_count_sum,
+                     window_count_sum_triton)
 from .tri import (masked_pair_counts, tricount_esc, tricount_auto,
                   tricount_prep_csr, ktruss_esc,
                   allktruss_esc, csr_filter_lanes, csr_tril, csr_triu)
@@ -41,15 +37,13 @@ __all__ = [
     "CsrMatrix", "CscMatrix", "csr_from_coo", "pack_pattern", "popcount", "words_for",
     "csr_mxv", "csr_vxm", "segment_reduce", "edge_intersection_counts",
     "masked_spgemm_counts", "tricount_sparse", "ktruss_sparse",
-    "tile_pattern", "tile_pattern_from_coo", "tile_matrix", "bsr_masked_count", "tricount_bsr", "TilePattern",
-    "bsr_masked_mm_pallas", "bsr_masked_count_pallas",
-    "tricount_bsr_pallas", "masked_mxm", "csr_ewise_add",
+    "tile_pattern", "tile_pattern_from_coo", "tile_matrix", "tricount_bsr", "TilePattern",
+    "bsr_masked_mm", "masked_mxm", "csr_ewise_add",
     "csr_ewise_mult", "csr_apply", "csr_select", "csr_reduce_rows",
     "csr_reduce_scalar", "bfs_csr", "pagerank_csr",
     "csr_spgemm", "csr_accum_mask", "csr_clear",
-    "build_window_plan", "build_band_plan", "window_masked_mm",
-    "window_masked_count_sum", "window_count_partials",
-    "window_masked_mm_pallas", "tricount_band_partials",
+    "build_window_plan", "window_masked_mm",
+    "window_masked_count_sum", "window_count_sum_triton",
     "masked_pair_counts", "tricount_esc", "tricount_auto",
     "tricount_prep_csr", "ktruss_esc", "allktruss_esc",
     "csr_filter_lanes", "csr_tril", "csr_triu",

@@ -85,9 +85,8 @@ def _pagerank_csr_impl(rows, cols, inv_deg_vals, n, iters):
 
 def pagerank_csr(A: CsrMatrix, iters: int = 20) -> np.ndarray:
     """PageRank ranks (normalized), one compiled loop over the edges."""
-    deg = np.zeros(A.nrows, np.float32)
     rid = np.asarray(A.rowids)[:A.nvals]
-    np.add.at(deg, rid, 1.0)
+    deg = np.bincount(rid, minlength=A.nrows).astype(np.float32)
     inv = np.zeros(A.nzmax, np.float32)
     inv[:A.nvals] = 1.0 / deg[rid]
     r = _pagerank_csr_impl(A.rowids, A.indices, jnp.asarray(inv),

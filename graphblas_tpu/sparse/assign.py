@@ -6,7 +6,7 @@ C(I,J)), and ``Template/GB_subref_template.c`` (extraction); executable
 specs ``Test/GB_spec_assign.m`` / ``GB_spec_subassign.m``.
 
 The reference's 48-case subassign kernel is a scatter machine with
-zombies and pending tuples.  The TPU-native form is three coordinate
+zombies and pending tuples.  The form here is three coordinate
 transforms plus the one sparse epilogue that already exists
 (:func:`graphblas_tpu.sparse.mask.csr_accum_mask`):
 

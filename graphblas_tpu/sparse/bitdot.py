@@ -15,8 +15,8 @@ dimension by measured wedge weight:
       counts[i,j] = popcount( Apack[i, :] & Bpack[j, :] )
 
   — two W-word row gathers + AND + popcount, fused by XLA into one
-  HBM-bandwidth-bound pass (measured 100-130 GB/s on v5e, i.e. 16-38 M
-  mask edges/s at W=1024..128, *independent of graph structure*).
+  memory-bandwidth-bound pass whose cost is *independent of graph
+  structure*.
 
 * **light k** (the residual): the remaining A entries go through the
   sort-merge engine, whose lane count is now only the uncovered wedge
@@ -39,7 +39,7 @@ rebuild.  The k-truss sweep (``sparse/tri.py``) prunes edges by ANDing
 liveness into the cached plan (the ``ktruss_graphblas.c:10-136`` loop
 whose per-iteration cost is one masked product, not a re-plan).
 
-This is the TPU answer to the reference's any-pattern masked dot
+This is the data-parallel answer to the reference's any-pattern masked dot
 (``GB_AxB_dot.c:10-27``, ``Template/GB_AxB_dot_mask.c``): the reference
 walks each mask entry's two sparse lists; here the heavy lists become
 constant-width bitmap rows so the chip streams them at memory speed,
@@ -70,7 +70,9 @@ __all__ = ["BitdotPlan", "PackLevel", "build_bitdot_plan",
 _CHUNK_WORDS = 1 << 27
 
 #: peak panel memory budget (cached level-1 pair + one transient
-#: extra-level pair coexist), bytes; override with GBTPU_BITDOT_BUDGET
+#: extra-level pair coexist), bytes, when the device reports no free
+#: memory; override with GBTPU_BITDOT_BUDGET.  A memory bound, not a
+#: measured optimum on the card (ROADMAP 3.3)
 import os as _os
 _PANEL_BUDGET = int(_os.environ.get("GBTPU_BITDOT_BUDGET", 8 << 30))
 
@@ -513,7 +515,8 @@ def _auto_budget() -> int:
     """Panel budget bounded by what the device actually has free —
     a fixed budget OOMs when containers/workspace already hold
     several GB (k-truss at scale: the symmetric mask + per-iteration
-    rebuilds).  Falls back to the static budget off-TPU."""
+    rebuilds).  Falls back to the static budget where the device
+    reports no memory statistics (the CPU)."""
     try:
         st = jax.local_devices()[0].memory_stats()
         free = int(st["bytes_limit"]) - int(st["bytes_in_use"])

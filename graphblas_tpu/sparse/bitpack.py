@@ -1,13 +1,13 @@
 """Bit-packed boolean patterns: 32 columns per uint32 word.
 
-The TPU has no native sparse gather/scatter; what it does have is a VPU
-that chews through int32 lanes and a fast HBM gather.  Packing a boolean
+Vector units chew through int32 lanes and row gathers stream at memory
+bandwidth, while per-element sparse scatters do not.  Packing a boolean
 row into n/32 uint32 words makes a whole adjacency row ~400 bytes for a
 12K-node graph, so *row intersection* (the inner loop of masked SpGEMM /
 triangle counting / k-truss) becomes gather + AND + popcount — a few
-hundred VPU ops per output edge instead of an n-wide dense dot.
+hundred vector ops per output edge instead of an n-wide dense dot.
 
-This is the TPU-native answer to the reference's Sauna gather/scatter
+This is the data-parallel answer to the reference's Sauna gather/scatter
 workspace (``GB_AxB_Gustavson.c``) for boolean/counting semirings.
 """
 

@@ -1,7 +1,7 @@
 """Padded-CSR/COO sparse containers for large graphs.
 
 The reference's four storage formats (CSR/CSC/hyper x2,
-``Source/Template/GB_matrix.h:41-132``) collapse into one TPU-friendly
+``Source/Template/GB_matrix.h:41-132``) collapse into one accelerator-friendly
 container: CSR arrays **plus** the COO row-ids dual (``rowids``), padded
 to a static capacity ``nzmax`` so every kernel sees fixed shapes (XLA's
 static-shape requirement; SURVEY.md §7 "hard parts" #1).  Padding
@@ -223,7 +223,11 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
             raise IndexOutOfBounds(
                 f"tuple index out of range for {nrows}x{ncols}: "
                 f"rows [{imin},{imax}], cols [{jmin},{jmax}]")
-    if I.size:
+    # input already in strictly increasing (i, j) order (generators and
+    # loaders emit it so) needs neither the sort nor the dup pass
+    presorted = I.size < 2 or bool(np.all(
+        (I[1:] > I[:-1]) | ((I[1:] == I[:-1]) & (J[1:] > J[:-1]))))
+    if I.size and not presorted:
         from ..io.native import sort_dedup_native, sort_pairs_native
         if sum_duplicates:
             nat = None
@@ -258,8 +262,7 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
     if cap < nvals:
         raise ValueError(f"nzmax {cap} < nvals {nvals}")
     indptr = np.zeros(nrows + 1, np.int32)
-    np.add.at(indptr, I + 1, 1)
-    indptr = np.cumsum(indptr).astype(np.int32)
+    indptr[1:] = np.cumsum(np.bincount(I, minlength=nrows))
     indices = np.full(cap, ncols, np.int32)
     rowids = np.full(cap, nrows, np.int32)
     values = np.zeros(cap, t.dtype)
@@ -270,9 +273,8 @@ def csr_from_coo(I, J, X, nrows: int, ncols: int,
                   jnp.asarray(rowids), jnp.asarray(values),
                   nvals, nrows, ncols, t)
     # stash the host-side pattern (it exists right here anyway): kernel
-    # plans (spmv_plan, BSR schedules) read it instead of pulling the
-    # device arrays back — a large device->host pull both wastes time
-    # and degrades this runtime's dispatch latency (PERF.md)
+    # plans (spmv_plan, window and bitdot plans) read it instead of
+    # pulling the device arrays back
     A._options["host_pattern"] = (rowids, indices)
     return A
 
@@ -308,8 +310,7 @@ def _csr_from_coo_udt(I, J, X, nrows: int, ncols: int, t: Type,
     if cap < nvals:
         raise ValueError(f"nzmax {cap} < nvals {nvals}")
     indptr = np.zeros(nrows + 1, np.int32)
-    np.add.at(indptr, I + 1, 1)
-    indptr = np.cumsum(indptr).astype(np.int32)
+    indptr[1:] = np.cumsum(np.bincount(I, minlength=nrows))
     indices = np.full(cap, ncols, np.int32)
     rowids = np.full(cap, nrows, np.int32)
     indices[:nvals] = J

@@ -3,7 +3,7 @@
 C<M> = A *.semiring* B for CSR inputs producing CSR output at O(flops)
 memory — ANY (add monoid, mult op) pair, fused mask, no densification.
 
-This is the TPU-native answer to the reference's Gustavson engine
+This is the data-parallel answer to the reference's Gustavson engine
 (``Source/GB_AxB_Gustavson.c:139-160``: symbolic count phase + numeric
 gather/scatter via the Sauna).  A scatter-accumulator workspace is the
 wrong shape for a vector machine, so instead we use the
@@ -44,22 +44,17 @@ import numpy as np
 from ..core.semirings import Semiring
 from ..core.types import Type, cast
 from .container import CsrMatrix
-from .spmv import segment_reduce
+from .spmv import _SEGMENT_MONOIDS, segment_reduce
 
 __all__ = ["csr_spgemm", "esc_combine"]
 
 _tmap = jax.tree_util.tree_map
 
-# monoids with a direct jax.ops segment reduction (GB_assoc_template
-# switch-factory analogue); everything else folds via segmented scan
-_SEGMENT_MONOIDS = ("PLUS", "TIMES", "MIN", "MAX", "LOR", "LAND", "LXOR",
-                    "EQ")
 
-
-#: lanes-per-dispatch ceiling: ESC programs beyond ~2^24 expansion
-#: lanes fault the TPU worker (measured: 67-84 M-lane masked
-#: plus_times died; 16.7 M-lane blocks run — ESC carries more state
-#: per lane than the tri engine, whose cap is 2^26)
+#: lanes-per-dispatch ceiling: ESC carries more state per lane than the
+#: tri engine (whose cap is 2^26), so its programs stay at 2^24 lanes.
+#: A memory bound kept from an earlier device, not re-derived on the
+#: card (ROADMAP 1.6).
 _ESC_LANE_CAP = 1 << 24
 
 
@@ -144,8 +139,8 @@ def _carry_jit(a_indices, b_indptr, ncolsA: int):
     """Per-entry expansion carries (pattern-only; cached in the plan).
 
     All lane offsets are int32: per-dispatch flops <= E < 2^31 by
-    construction (E = bucket(flops)), int64 is EMULATED on the TPU
-    vector unit, and the scatter-diff/cumsum reconstruction is exact
+    construction (E = bucket(flops)), int32 lanes move half the bytes
+    of int64, and the scatter-diff/cumsum reconstruction is exact
     under int32 wraparound because the reconstructed values fit."""
     nzmaxA = a_indices.shape[0]
     degB = b_indptr[1:] - b_indptr[:-1]
@@ -172,9 +167,8 @@ def _expand_lanes(pos0_c, eid_c, st_c, nne, total,
                   nzmaxB: int):
     """Lane t -> (A entry e, B position pos, live flag, i, j) from the
     precomputed carries: two scatters + two cumsums + the inherent
-    ``b_indices[pos]`` gather — no per-lane searchsorted (the round-3
-    form cost ~21 chained gathers per lane and capped the ESC engine
-    at 0.92 M lanes/s)."""
+    ``b_indices[pos]`` gather — no per-lane searchsorted (~21 chained
+    gathers per lane)."""
     CN = pos0_c.shape[0]
 
     def diffs(v):
@@ -232,14 +226,12 @@ def _esc_core(sr: Semiring, E: int, m: int, n: int, k: int,
 
     # sort by output coordinate, payloads carried THROUGH the sort
     # (an argsort + per-lane permutation gathers costs 2 extra random
-    # accesses per lane and per payload leaf — the measured slow
-    # primitive; lax.sort moves the payload in the sort network).
-    # Mask membership is a SORT-MERGE, not a per-lane searchsorted: the
-    # binary search cost ~log2(nzM) chained gathers per lane (~160 ns,
-    # 5x the whole remaining pipeline); instead the (sorted) mask keys
-    # ride the same sort, tagged to land just before their lanes, and
-    # membership is one cummax pass (Template/GB_AxB_dot_mask.c
-    # restructured for a machine whose sorts outrun its gathers 4:1).
+    # accesses per lane and per payload leaf; lax.sort moves the
+    # payload in the sort network).  Mask membership is a SORT-MERGE,
+    # not a per-lane searchsorted (~log2(nzM) chained gathers per
+    # lane): the (sorted) mask keys ride the same sort, tagged to land
+    # just before their lanes, and membership is one cummax pass
+    # (Template/GB_AxB_dot_mask.c as one data-parallel sort).
     leaves, treedef = jax.tree_util.tree_flatten(z)
     if has_mask:
         NM = m_keys.shape[0]
@@ -380,9 +372,8 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
 
     if flops is None:
         # flop total sizes the expansion buffer.  When both operands
-        # carry their build-time host patterns, compute it with numpy —
-        # a device round-trip per call both costs ~1 RTT and degrades
-        # subsequent dispatch latency on this runtime (PERF.md)
+        # carry their build-time host patterns, compute it with numpy
+        # and spare a device round trip per call
         hpA = A._options.get("host_pattern")
         hpB = B._options.get("host_pattern")
         if hpA is not None and hpB is not None:
@@ -394,10 +385,9 @@ def csr_spgemm(sr: Semiring, A: CsrMatrix, B: CsrMatrix,
                       and mask.nvals == 0):
         return _empty_csr(m, n, zt)
     if flops > _ESC_LANE_CAP:
-        # a single program beyond ~2^26 lanes faults the TPU worker
-        # (measured at 84 M; the tri engine's 2^26 dispatches are the
-        # proven ceiling): split A into contiguous flop-balanced entry
-        # blocks and monoid-merge the per-block partial outputs
+        # bound each program's lanes (and so its memory): split A into
+        # contiguous flop-balanced entry blocks and monoid-merge the
+        # per-block partial outputs
         return _csr_spgemm_chunked(sr, A, B, mask, complement,
                                    structural, flops)
     E = _bucket4(flops)

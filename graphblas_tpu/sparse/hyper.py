@@ -7,7 +7,7 @@ dimension up to 2^60 feasible (``Source/Template/GB_matrix.h:41-132,
 O(nrows) ``indptr``, so it stops at a few hundred million rows.  This
 module removes that cap.
 
-TPU-native form: sorted int64 COO (``rowids``/``indices``/``values``,
+Form here: sorted int64 COO (``rowids``/``indices``/``values``,
 padded to a static ``nzmax``) plus the compressed row list ``h`` [hcap]
 and row pointers ``hptr`` [hcap+1] over *present* rows only.  Every
 kernel is edge-parallel over the nnz lanes:
@@ -485,8 +485,8 @@ def hyper_spgemm(sr: Semiring, A: HyperMatrix, B: HyperMatrix,
         return _empty_hyper(m, n, zt)
     from .esc import _ESC_LANE_CAP
     if flops > _ESC_LANE_CAP:
-        # a single ESC program beyond the lane cap faults the TPU
-        # worker (esc.py); when the dimensions admit an O(nrows)
+        # ESC programs stay under the lane cap (esc.py); when the
+        # dimensions admit an O(nrows)
         # indptr, delegate to the lane-capped chunked CSR engine and
         # convert back — huge-dimension AND huge-flop products raise a
         # clear error instead of crashing the device

@@ -12,7 +12,7 @@ stays on-chip.  This replaces the reference's dot-product template
 (``Template/GB_AxB_dot_mask.c``) and is the hot kernel of triangle
 counting and k-truss.  FLOP cost scales with nnz(M)·n/32 instead of the
 dense n³ — on a 12K-node Wathen graph that is ~40x less work than the
-dense-bitmap MXU path, and it's what lets the framework beat the
+dense-bitmap matmul path, and it's what lets the framework beat the
 reference's edges/s at any graph size.
 """
 

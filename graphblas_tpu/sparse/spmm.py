@@ -1,12 +1,11 @@
 """SpMM: CSR sparse matrix x dense matrix, dense output.
 
 The single-x SpMV kernels (:mod:`spmv`) are bound by the per-lane
-x-gather (~0.1 G lanes/s on this machine) or the routing sort
-(~0.4 G keys/s) — PERF.md's measured envelope.  Gathering k-wide ROWS
-of a dense right operand costs roughly the same per row as a scalar
-gather, so batching k vectors through one gather multiplies the useful
-work per random access by k: the TPU-idiomatic answer to "SpMV faster
-than the gather bound" is SpMM (VERDICT round-3 #3 names exactly this).
+x-gather or the routing sort.  Gathering k-wide ROWS of a dense right
+operand costs roughly the same per row as a scalar gather, so batching
+k vectors through one gather multiplies the useful work per random
+access by k: the answer to "SpMV faster than the gather bound" is
+SpMM.
 
 Engine: **bucketed ELL**.  At plan time (host, cached per matrix) rows
 are grouped into power-of-two length buckets and the entries permuted
@@ -14,9 +13,7 @@ into bucket-major slot order with identity padding.  Per call, ONE
 jitted program gathers X rows at the slot columns, multiplies by the
 slot values, reduces each bucket with a dense axis reduce
 (reshape (rows, L, k) -> monoid over axis 1), and scatters the bucket
-rows into place.  No global cumsum: the widened-f64 prefix sum the
-SpMV kernel uses for exactness is EMULATED on TPU and was measured 5x
-slower than the gather itself at k=32; per-row native-dtype
+rows into place.  No global prefix sum: per-row native-dtype
 accumulation both matches the reference's sequential fold semantics
 (``Generator/GB_AxB.c`` row walks) and runs at dense-reduce bandwidth.
 

@@ -1,9 +1,9 @@
 """Sparse matrix-vector multiply over semirings: gather + segment-reduce.
 
 The reference's SpMV is a CSR row walk inside the generated semiring
-workers.  The TPU-native form is edge-parallel: one gather of x at the
-column indices, one vectorized multiply, one segment-reduce keyed by the
-COO row ids — all static-shape, all VPU.  Padded lanes read the identity
+workers.  The data-parallel form here is edge-parallel: one gather of x
+at the column indices, one vectorized multiply, one segment-reduce keyed
+by the COO row ids — all static-shape, one fused program.  Padded lanes read the identity
 slot appended to x (see container.py's sentinel convention) so no
 masking is needed in the hot path.
 
@@ -176,27 +176,31 @@ def _udt_mxv_prog(sr: Semiring, nrows: int):
 
 
 #: widened accumulator for the cumsum-based row sum: the global prefix
-#: accumulates over ALL lanes, so int32 must widen to int64 and f32 to
-#: f64 (the per-row result is then exact for ints and within one
-#: rounding of the sequential sum for floats)
+#: accumulates over ALL lanes, so narrow ints widen to int64 (wrapping
+#: sums stay congruent, so rows are exact).  Integer lanes only: a float
+#: prefix sum turns one non-finite lane into inf - inf = NaN for every
+#: later row, so float PLUS takes the segment sum.
 _CUMSUM_WIDE = {np.dtype(np.int8): jnp.int64, np.dtype(np.int16): jnp.int64,
                 np.dtype(np.int32): jnp.int64, np.dtype(np.uint8): jnp.int64,
                 np.dtype(np.uint16): jnp.int64, np.dtype(np.uint32): jnp.int64,
-                np.dtype(np.float32): jnp.float64,
-                np.dtype(np.float64): jnp.float64,
                 np.dtype(np.bool_): jnp.int64}
+
+#: monoids with a direct jax.ops segment reduction (``segment_reduce``;
+#: the GB_assoc_template switch-factory analogue); everything else folds
+#: via the segmented scan
+_SEGMENT_MONOIDS = ("PLUS", "TIMES", "MAX", "MIN", "LOR", "LAND", "LXOR",
+                    "EQ")
 
 
 @partial(jax.jit, static_argnums=(0, 1, 2, 3))
 def _csr_mxv_densex_jit(add_name: str, sr: Semiring, nrows: int, zdtype,
                         avals, cols, rows, indptr, x_ext, identity):
-    """Dense-x fast path tuned to the measured TPU envelope: scalar
-    gathers run ~0.12 G/s and segment_sum is no faster, while cumsum
-    runs ~4 G/s — so this kernel does exactly ONE per-lane gather
-    (x at the column ids) and reduces rows via a widened cumulative
-    sum + O(nrows) boundary gathers (PLUS monoids), or the log-depth
-    segmented scan for other monoids.  The output pattern comes from
-    indptr degrees — no per-lane pattern gather."""
+    """Dense-x path: exactly ONE per-lane gather (x at the column ids);
+    rows reduce via a widened cumulative sum + O(nrows) boundary
+    gathers (PLUS monoids, no scatter atomics), the segment reduction
+    (named monoids), or the log-depth segmented scan (the rest).  The
+    output pattern comes from indptr degrees — no per-lane pattern
+    gather."""
     xg = jnp.take(x_ext, cols, axis=0)
     z = _mult_apply(sr, avals, xg)
     live = rows < nrows
@@ -211,11 +215,10 @@ def _csr_mxv_densex_jit(add_name: str, sr: Semiring, nrows: int, zdtype,
         nz = z.shape[0]
         y = cs0[jnp.minimum(indptr[1:], nz)] - \
             cs0[jnp.minimum(indptr[:-1], nz)]
-    elif nm in ("TIMES", "MAX", "MIN", "LOR", "LAND", "LXOR", "EQ"):
-        # named monoids take the hardware segment reduction: the
-        # log-depth associative scan below unrolls ~log2(nzmax) HLO
-        # levels, which at scale-18 sizes costs MINUTES of compile and
-        # runs far slower than one segment op (round-3 scale runs)
+    elif nm in _SEGMENT_MONOIDS:
+        # named monoids take the segment reduction: the log-depth
+        # associative scan below unrolls ~log2(nzmax) HLO levels, which
+        # at scale-18 sizes costs minutes of compile
         seg = jnp.minimum(rows, nrows)
         y = segment_reduce(nm, z, seg, nrows + 1, identity)[:nrows]
     else:
@@ -228,10 +231,8 @@ def _csr_mxv_densex_jit(add_name: str, sr: Semiring, nrows: int, zdtype,
 
 
 # ---------------------------------------------------------------------------
-# Sort-routed SpMV: the per-lane x-gather is the whole cost of the
-# kernels above (~0.12 G lanes/s on this machine, PERF.md), while
-# cumsum runs ~3.9 G/s and sort ~0.4 G keys/s.  So for dense x we can
-# do better with zero per-lane gathers:
+# Sort-routed SpMV: zero per-lane gathers, for machines where a random
+# per-lane gather is slower than a sort of the same lanes:
 #   * precompute (once per matrix) the CSC ordering of the padded
 #     lanes: values reordered, the original CSR position of each CSC
 #     lane ("rank"), and the column-segment starts;
@@ -242,11 +243,10 @@ def _csr_mxv_densex_jit(add_name: str, sr: Semiring, nrows: int, zdtype,
 #     payload sort keyed by rank;
 #   * reduce rows with the widened cumsum (PLUS) or the segmented scan
 #     (other monoids) as usual.
-# The sort is the new bottleneck: ~0.4 G lanes/s ceiling vs the gather
-# kernel's 0.12 G — measured ~3x on scale-14 R-MAT (bench_spmv.py).
+# The sort is then the bottleneck.  Which of the two dense-x kernels is
+# faster is a property of the device (bench_spmv.py times both).
 # Reference counterpart: the generated SpMV row walks
-# (``Generator/GB_AxB.c``); the restructuring is purely the TPU's
-# sort/scan-over-gather preference.
+# (``Generator/GB_AxB.c``).
 
 #: 4-byte dtypes the bitcast broadcast can carry exactly
 _SORTABLE_X = {np.dtype(np.float32), np.dtype(np.int32),
@@ -334,7 +334,7 @@ def _csr_mxv_sorted_jit(add_name: str, sr: Semiring, nrows: int, zdtype,
         cs0 = jnp.concatenate([jnp.zeros((1,), wide), cs])
         y = cs0[jnp.minimum(indptr[1:], E)] - \
             cs0[jnp.minimum(indptr[:-1], E)]
-    elif nm in ("TIMES", "MAX", "MIN", "LOR", "LAND", "LXOR", "EQ"):
+    elif nm in _SEGMENT_MONOIDS:
         live = rows_csr < nrows
         z_csr = jnp.where(live, z_csr, jnp.asarray(identity, z_csr.dtype))
         seg = jnp.minimum(rows_csr, nrows)
@@ -366,13 +366,10 @@ def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None):
     """(yvals, ypat) = A *.sr* x.  x: dense [ncols] value array;
     ``x_pattern`` marks present entries (None = all present).
     UDT semirings (struct x/z) route through the generic pytree kernel.
-
-    Non-finite caveat: dense-x f32 PLUS_TIMES auto-routes to the BSR
-    tile kernel, whose dense tiles contribute 0*inf = NaN for any row
-    sharing a column block with an inf/NaN x entry (the gather kernel
-    ignores absent entries).  Set ``A._options['bsr_spmv'] = False`` to
-    opt out and keep exact absent-entry semantics."""
+    Absent entries of A contribute nothing, even against a non-finite
+    x.  The dense-x kernel used is recorded in ``last_axb_method``."""
     from ..core.types import cast as gbcast
+    from ..ops.flopcount import record_axb_method
     if sr.ztype.is_udt or sr.xtype.is_udt or sr.ytype.is_udt \
             or A.type.is_udt:
         tmap = jax.tree_util.tree_map
@@ -398,13 +395,9 @@ def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None):
     # identity slot for padded column indices (sentinel = ncols)
     x_ext = jnp.concatenate([x, jnp.zeros((1,), x.dtype)])
     if x_pattern is None:
-        from .pallas_spmv import bsr_spmv, bsr_spmv_ok
-        if bsr_spmv_ok(sr, A):
-            # dense x, dense-enough tiles: single-dispatch Pallas BSR
-            # kernel — the whole SpMV is one pallas_call on the MXU
-            return bsr_spmv(sr, A, x)
         if _sorted_path_ok(sr, A):
             # dense x, large matrix: zero-gather sort-routed kernel
+            record_axb_method("spmv:sorted")
             avals_csc, rank, sp, sc = spmv_plan(A)
             return _csr_mxv_sorted_jit(sr.add.op.name, sr, A.nrows,
                                        sr.ztype.dtype,
@@ -412,6 +405,7 @@ def csr_mxv(sr: Semiring, A: CsrMatrix, x, x_pattern=None):
                                        rank, sp, sc, A.rowids, A.indptr,
                                        x_ext, ident)
         # dense x: one-gather kernel, no per-lane pattern work
+        record_axb_method("spmv:gather")
         return _csr_mxv_densex_jit(sr.add.op.name, sr, A.nrows,
                                    sr.ztype.dtype, avals, A.indices,
                                    A.rowids, A.indptr, x_ext, ident)

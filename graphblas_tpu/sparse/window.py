@@ -1,29 +1,34 @@
-"""Window-panel masked SpGEMM: banded/clustered graphs on the MXU.
+"""Window-panel masked SpGEMM: banded/clustered graphs as one dense
+batched contraction.
 
-The tile-triple BSR schedule (:mod:`pallas_bsr`) dispatches one 128^3
-MXU contraction per (I,J,K) tile triple.  At FEM/banded tile densities
-(~1-2%) the padding costs ~50x the useful flops AND the grid pays a
-fixed per-step cost, so the kernel is schedule-bound (PERF.md round 2,
-VERDICT round-2 weak #1).  This engine exploits the structure those
-graphs actually have: each 128-row block I of A touches a narrow
-contiguous window of columns, and the masked output blocks J sit in a
-narrow window too.  The masked product then collapses to ONE batched
-dense contraction
+A tile-triple BSR schedule (:mod:`bsr`) runs one 128^3 contraction per
+(I,J,K) tile triple.  At FEM/banded tile densities (~1-2%) padding
+costs ~50x the useful flops and the schedule pays a fixed per-triple
+cost.  This engine exploits the structure those graphs actually have:
+each 128-row block I of A touches a narrow contiguous window of
+columns, and the masked output blocks J sit in a narrow window too.
+The masked product then collapses to ONE batched dense contraction
 
-    C_I = P_I @ Q_I^T        (P_I = A[I-rows, window], dense int8/f32;
+    C_I = P_I @ Q_I^T        (P_I = A[I-rows, window], dense int8;
                               Q_I = B'[J-rows, window] stacked)
 
-followed by an in-register mask-multiply — a single XLA program per
-call, no per-triple scheduling at all.  Dispatched flops ~= the real
-tile-triple schedule (window padding ~1.5-2x), but the MXU sees
-(128, W*128) @ (W*128, nJ*128) contractions it can actually pipeline.
+followed by a mask-multiply and a sum: a single XLA program per call.
+
+Two forms of the masked count are kept side by side: the XLA form
+(:func:`window_masked_count_sum`, a batched int8 ``dot_general`` whose
+(nI, 128, nJmax*128) int32 product goes through device memory) and a
+Pallas kernel for the GPU through Triton
+(:func:`window_count_sum_triton`: one program per 128-row block
+and 128-column tile, product tiles reduced in registers, one int32
+partial row per program).  On the GPU ``tricount_auto`` takes the
+kernel, the faster of the two there (PERF.md); elsewhere the XLA form.
 
 Plan building is host-side from the CSR/COO pattern (O(nnz), no dense
 n^2 intermediate) and cached per (A, B, M) pattern identity, like the
 ESC plan cache.  ``build_window_plan`` returns None when the window
-structure is too wide to pay (power-law graphs) — callers fall back to
-the tile-triple or sort-merge engines; this is the structural analogue
-of ``GB_AxB_select.c``'s method heuristic.
+structure is too wide to pay (power-law graphs): callers fall back to
+the sort-merge engines; this is the structural analogue of
+``GB_AxB_select.c``'s method heuristic.
 
 Reference counterpart: the masked-dot tricount workload
 (``Demo/Source/tricount.c`` SandiaDot, ``Template/GB_AxB_dot_mask.c``).
@@ -31,20 +36,24 @@ Reference counterpart: the masked-dot tricount workload
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = ["WindowPlan", "build_window_plan", "window_masked_count_sum",
-           "window_masked_mm", "tricount_window"]
+           "window_count_sum_triton", "window_masked_mm",
+           "tricount_window"]
 
 T = 128
 
 #: reject plans whose contraction window exceeds this many 128-blocks —
 #: wider windows mean the dense panels are mostly padding and the
-#: tile-triple schedule wins
+#: sort-merge engines win
 MAX_W_BLOCKS = 16
 #: panel memory budget (bytes) for P+Q+M on device
 MAX_PANEL_BYTES = 1 << 31
@@ -181,8 +190,8 @@ def build_window_plan(A, B, M):
                       Wmax * T, k0 * T, dt)
     # Q panels: B rows [j0*T, (j0+nJmax)*T) over A's window cols —
     # stored TRANSPOSED (window, rows) so the device contraction is a
-    # plain A @ B (Mosaic's int8 dot requires the standard layout; the
-    # A @ B' form fails to legalize)
+    # plain A @ B, the layout both the batched dot and the kernel's
+    # tile loads want
     Q = _block_panels(rb, cb, nB, j0 * T, j0 * T + nJmax * T,
                       Wmax * T, k0 * T, dt).transpose(0, 2, 1).copy()
     # M panels: mask block-rows over output cols [j0*T, (j0+nJmax)*T)
@@ -221,6 +230,65 @@ def window_masked_count_sum(plan: WindowPlan):
     return _count_sum_jit(plan.P, plan.Q, plan.M)
 
 
+#: Triton kernel shape, tuned on the card (PERF.md): contraction chunk
+#: and output-column tile (both divide every plan's W*128 and
+#: nJmax*128), warps per program, software-pipeline stages
+_TK = 128
+_TN = 128
+_WARPS = 4
+_STAGES = 3
+
+
+def _count_kernel(p_ref, q_ref, m_ref, o_ref):
+    """One (128-row block, 128-column tile) program: masked column sums
+    of P @ Q kept in registers.  0/1 operands go to the tensor cores as
+    fp16 with f32 accumulation; every count is at most W*128 <= 2048,
+    so both are exact."""
+    i32 = jnp.int32
+
+    def kstep(k, acc):
+        ks = pl.ds(k * _TK, _TK)
+        p = p_ref[:, ks].astype(jnp.float16)
+        q = q_ref[ks, :].astype(jnp.float16)
+        return acc + jax.lax.dot(p, q, preferred_element_type=jnp.float32)
+
+    acc = jax.lax.fori_loop(i32(0), i32(p_ref.shape[1] // _TK), kstep,
+                            jnp.zeros((T, _TN), jnp.float32))
+    o_ref[...] = jnp.sum(acc.astype(i32) * m_ref[...].astype(i32), axis=0,
+                         dtype=i32)
+
+
+@partial(jax.jit, static_argnums=(3,))
+def _count_triton_jit(P, Q, M, interpret: bool):
+    nI, _, K = P.shape
+    N = Q.shape[2]
+    parts = pl.pallas_call(
+        _count_kernel,
+        grid=(nI, N // _TN),
+        in_specs=[pl.BlockSpec((None, T, K), lambda i, j: (i, 0, 0)),
+                  pl.BlockSpec((None, K, _TN), lambda i, j: (i, 0, j)),
+                  pl.BlockSpec((None, T, _TN), lambda i, j: (i, 0, j))],
+        out_specs=pl.BlockSpec((None, _TN), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((nI, N), jnp.int32),
+        compiler_params=plgpu.CompilerParams(num_warps=_WARPS,
+                                             num_stages=_STAGES),
+        backend="triton",
+        interpret=interpret,
+        name="window_count",
+    )(P, Q, M)
+    # each column sum is bounded by 128 * 2048; the total is not
+    return jnp.sum(parts.astype(jnp.int64))
+
+
+def window_count_sum_triton(plan: WindowPlan, interpret: bool = False):
+    """Same value as :func:`window_masked_count_sum` through the Pallas
+    Triton kernel: the (nI, 128, nJmax*128) product never reaches device
+    memory.  ``interpret=True`` runs the kernel on the CPU (tests)."""
+    from ..ops.flopcount import record_axb_method
+    record_axb_method("window:count_triton")
+    return _count_triton_jit(plan.P, plan.Q, plan.M, interpret)
+
+
 @jax.jit
 def _masked_mm_jit(P, Q, M):
     C = jax.lax.dot_general(P, Q, (((2,), (1,)), ((0,), (0,))),
@@ -244,77 +312,3 @@ def tricount_window(L, U) -> Optional[int]:
     if plan is None:
         return None
     return int(np.asarray(window_masked_count_sum(plan)))
-
-
-# ---------------------------------------------------------------------------
-# Band plan: uniform per-block windows for the ring kernel
-# ---------------------------------------------------------------------------
-
-class BandPlan:
-    """Uniform-window band panels for the tricount ring kernel.
-
-    P  (nI, 128, Wb*128)  int8: L row-block I over blocks [I-Wb+1, I+1)
-    Ut (nI, Wb*128, 128)  int8: U row-block J, TRANSPOSED (window, rows),
-                                over blocks [J, J+Wb)
-    Uniform windows mean every (I, J=I-s) pair's contraction overlap is
-    a STATIC slice (s+1 blocks), so the kernel needs no per-pair
-    scheduling and U streams exactly once (VMEM ring of depth Wb)."""
-
-    def __init__(self, P, Ut, nI, Wb, ntriples, nedges):
-        self.P = P
-        self.Ut = Ut
-        self.nI = nI
-        self.Wb = Wb
-        self.ntriples = ntriples
-        self.nedges = nedges
-
-    @property
-    def panel_bytes(self):
-        return self.P.nbytes + self.Ut.nbytes
-
-
-def build_band_plan(L, U):
-    """Tricount band plan: C<L> = L · U' for lower/upper-triangular
-    pattern pairs whose band fits MAX_W_BLOCKS 128-blocks.  Returns
-    None (cached) when the structure doesn't qualify."""
-    key = ("_band_plan", id(U))
-    plan = L._options.get(key)
-    if plan is not None:
-        return plan if isinstance(plan, BandPlan) else None
-    hL, hU = _host_coo(L), _host_coo(U)
-    if hL is None or hU is None:
-        return None
-    rl, cl, m, _ = hL
-    ru, cu, mu, _ = hU
-    nI = -(-m // T)
-    bl, bu = rl // T, ru // T
-    # band width in blocks, both directions
-    wb = 1
-    if len(rl):
-        wb = max(wb, int((bl - cl // T).max()) + 1)
-    if len(ru):
-        wb = max(wb, int((cu // T - bu).max()) + 1)
-    if wb > MAX_W_BLOCKS or (cl > rl).any() or (cu < ru).any():
-        L._options[key] = False
-        return None
-    pb = 2 * nI * T * wb * T
-    if pb > MAX_PANEL_BYTES:
-        L._options[key] = False
-        return None
-    lo = np.arange(nI) * T
-    P = _block_panels(rl, cl, m, lo, lo + T, wb * T,
-                      (np.arange(nI) - wb + 1) * T, np.int8)
-    Ut = _block_panels(ru, cu, mu, lo, lo + T, wb * T,
-                       np.arange(nI) * T, np.int8).transpose(0, 2, 1).copy()
-    # real tile-triple count (device-flop truth, as in build_window_plan)
-    nKb = -(-max(m, mu) // T)
-    occL = np.zeros((nI, nKb), bool)
-    occL[bl, cl // T] = True
-    occU = np.zeros((nI, nKb), bool)
-    occU[bu, cu // T] = True
-    ntr = int(np.einsum("ik,jk,ij->", occL.astype(np.int64),
-                        occU.astype(np.int64), occL.astype(np.int64)))
-    plan = BandPlan(jnp.asarray(P), jnp.asarray(Ut), nI, wb, ntr,
-                    len(rl))
-    L._options[key] = plan
-    return plan

@@ -3,7 +3,7 @@
 The reference lets users register compile-time types/ops/monoids/
 semirings via m4 macros merged into the build
 (``User/Example/*.m4`` -> ``Source/all_user_objects.c``; 7 examples
-listed in ``User/README.txt:14-30``).  In the TPU framework user objects
+listed in ``User/README.txt:14-30``).  In this framework user objects
 are plain Python values — jax traces and monomorphizes them exactly like
 built-ins, so "compile-time" and "run-time" user objects are the same
 thing.  This module reproduces each shipped example 1:1 as living

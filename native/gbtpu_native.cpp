@@ -2,7 +2,7 @@
 //
 // The reference implements its data loader and tuple builder in C
 // (Demo/Source/read_matrix.c: fscanf triplet loop; Source/GB_builder.c:
-// qsort + dup assembly).  These are the TPU framework's host-side hot
+// qsort + dup assembly).  These are the framework's host-side hot
 // paths — graph ingest feeds the device, so parse + build throughput
 // gates end-to-end time on large graphs.  This library provides:
 //

@@ -3,7 +3,7 @@
 This is the analogue of the reference's MATLAB spec mimics
 (``Test/GB_spec_*.m``): every operation is written as naive dense numpy
 with explicit (matrix, pattern, class) handling, and test drivers compare
-it against the TPU implementation — the reference's Tier-2 differential
+it against the JAX implementation — the reference's Tier-2 differential
 testing strategy (SURVEY.md §4).
 """
 

@@ -267,8 +267,8 @@ def test_mxm_cost_model_exact_flops(rng):
 
 def test_chunked_spgemm_matches_single_program(rng):
     """Flop totals beyond the lane cap split into A-entry blocks whose
-    partials monoid-merge to the identical result (the cap exists
-    because one >2^26-lane program faults the TPU worker)."""
+    partials monoid-merge to the identical result (the cap bounds
+    each program's lanes and so its memory)."""
     import graphblas_tpu.sparse.esc as esc_mod
     from graphblas_tpu import sparse as sp
     r = np.random.default_rng(99)

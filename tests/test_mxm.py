@@ -11,7 +11,7 @@ import graphblas_tpu as gb
 from . import oracle as orc
 from .helpers import TYPES, assert_same, rand_om, to_gb
 
-# representative semiring sweep: all MXU fast paths + generic VPU paths
+# representative semiring sweep: all matmul fast paths + generic paths
 SEMIRINGS = [
     ("plus", "times", "FP64"), ("plus", "times", "FP32"),
     ("plus", "times", "INT32"), ("plus", "times", "UINT32"),

@@ -24,7 +24,7 @@ from tests.test_esc import to_csr, csr_to_om, check
 # ---------------------------------------------------------------------------
 
 def test_choose_axb_regimes():
-    # small dense-ish: the MXU bitmap engine
+    # small dense-ish: the matmul bitmap engine
     assert choose_axb_method(512, 512, 512, 80_000, 80_000) == "dense-mxu"
     # small + sparse mask: the bitpack dot engine
     assert choose_axb_method(8192, 8192, 8192, 100_000, 100_000,
@@ -54,7 +54,7 @@ def test_mxm_csr_routes_to_esc(rng):
 
 
 def test_mxm_csr_small_routes_dense(rng):
-    # tiny + dense-ish: the cost model picks the MXU engine even for
+    # tiny + dense-ish: the cost model picks the matmul engine even for
     # CSR containers (output still comes back as CsrMatrix)
     A = rand_om(rng, (40, 40), np.float32, density=0.5)
     Ac = to_csr(A, FP32)

@@ -189,6 +189,22 @@ def test_dist_csr_pagerank(mesh):
     assert np.allclose(got, want, atol=1e-5)
 
 
+def test_dist_csr_pagerank_csr_operand(mesh):
+    """A CsrMatrix operand is row-scaled and transposed on the host
+    (no densify) and matches the single-device CSR PageRank."""
+    from graphblas_tpu import sparse as sp
+    A = _random_graph(45, 0.12, 23)
+    I, J, _ = A.extractTuples()
+    Ac = sp.CsrMatrix.from_coo(np.asarray(I), np.asarray(J),
+                               np.ones(len(I), bool), 45, 45,
+                               type=gb.BOOL)
+    got = par.dist_csr_pagerank(Ac, iters=15, mesh=mesh)
+    want = sp.pagerank_csr(Ac, iters=15)
+    assert np.allclose(got, want, rtol=1e-5, atol=1e-7)
+    assert np.allclose(got, par.dist_csr_pagerank(A, iters=15, mesh=mesh),
+                       atol=1e-6)
+
+
 def test_dist_csr_bfs(mesh):
     from graphblas_tpu import models
     A = _random_graph(60, 0.07, 22)

@@ -138,7 +138,7 @@ def test_ktruss_sparse_matches_bitmap():
 
 
 # ---------------------------------------------------------------------------
-# BSR tile path (jnp + Pallas interpret mode)
+# BSR tile path
 # ---------------------------------------------------------------------------
 
 def test_bsr_tricount_matches_dense():
@@ -149,7 +149,6 @@ def test_bsr_tricount_matches_dense():
     U = np.triu(pat, 1)
     want = int(((pat.astype(np.float64) @ pat) * pat).sum()) // 6
     assert sp.tricount_bsr(L, U) == want
-    assert sp.tricount_bsr_pallas(L, U) == want
 
 
 def test_bsr_rectangular_tiles():
@@ -168,7 +167,7 @@ def test_bsr_rectangular_tiles():
 
 def test_bsr_pallas_empty_mask():
     Z = np.zeros((50, 50), bool)
-    assert sp.tricount_bsr_pallas(Z, Z) == 0
+    assert sp.tricount_bsr(Z, Z) == 0
 
 
 def test_bsr_values_masked_mxm():
@@ -268,6 +267,39 @@ def test_rmat_generator():
     assert A.nvals == len(rmat_edges(8, 4, seed=5)[0])
 
 
+def test_rmat_device_generator():
+    """The device generator keeps rmat_edges' contract: symmetric,
+    unique, no self edges, row-major sorted, ~edge_factor*n draws, and
+    the same seed gives the same graph."""
+    from graphblas_tpu.models.rmat import rmat_edges_device
+    n = 1 << 10
+    I, J = rmat_edges_device(10, 8, seed=3)
+    lin = I * n + J
+    assert I.dtype == np.int64 and I.max() < n and J.max() < n
+    assert (np.diff(lin) > 0).all() and (I != J).all()
+    assert np.array_equal(np.sort(J * n + I), lin)
+    assert 0.5 * 8 * n < len(I) <= 2 * 8 * n
+    I2, J2 = rmat_edges_device(10, 8, seed=3)
+    assert np.array_equal(I, I2) and np.array_equal(J, J2)
+    # R-MAT skew: the top vertex carries far more than the mean degree
+    assert np.bincount(I).max() > 8 * len(I) / n
+
+
+def test_csr_from_coo_presorted_matches_sorted():
+    """Row-major unique input skips the sort; the container equals the
+    one built from the shuffled tuples."""
+    rng = np.random.default_rng(14)
+    lin = np.unique(rng.integers(0, 60 * 50, 700))
+    I, J = lin // 50, lin % 50
+    X = rng.normal(size=len(I))
+    A = sp.CsrMatrix.from_coo(I, J, X, 60, 50)
+    p = rng.permutation(len(I))
+    B = sp.CsrMatrix.from_coo(I[p], J[p], X[p], 60, 50)
+    for f in ("indptr", "indices", "rowids", "values"):
+        assert np.array_equal(np.asarray(getattr(A, f)),
+                              np.asarray(getattr(B, f)))
+
+
 def test_csr_mxv_sparse_x_min_plus():
     # sparse x where mult(a, 0) != add identity: only correct if absent
     # contributions are masked to the identity
@@ -334,23 +366,29 @@ def test_pagerank_csr_whole_loop():
 @pytest.mark.parametrize("add,mult", [("MIN", "PLUS"), ("MAX", "PLUS"),
                                       ("MIN", "MAX"), ("MAX", "MIN"),
                                       ("MIN", "TIMES"), ("MAX", "TIMES")])
-def test_pallas_tropical_pairs(add, mult):
-    from graphblas_tpu.sparse.pallas_tropical import tropical_mm
+def test_tropical_pairs_mxm(add, mult):
+    """Tropical semirings on dense FP32 bitmap operands through gb.mxm
+    (the generic path) against the numpy oracle."""
+    from graphblas_tpu.ops.flopcount import last_axb_method
     rng = np.random.default_rng(60)
     a = rng.random((140, 150)).astype(np.float32) + 0.1
     b = rng.random((150, 130)).astype(np.float32) + 0.1
-    got = np.asarray(tropical_mm(a, b, add, mult, interpret=True))
+    sr = semiring[f"{add}_{mult}".lower()][gb.FP32]
+    C = gb.mxm(gb.Matrix.new(gb.FP32, 140, 130), None, None, sr,
+               gb.Matrix.from_dense(a, gb.FP32),
+               gb.Matrix.from_dense(b, gb.FP32))
+    assert last_axb_method() == "vpu:generic"
     ops = {"PLUS": np.add, "TIMES": np.multiply,
            "MIN": np.minimum, "MAX": np.maximum}
     z = ops[mult](a[:, :, None], b[None, :, :])
     want = z.min(axis=1) if add == "MIN" else z.max(axis=1)
-    assert np.allclose(got, want, rtol=1e-6)
+    assert C.pattern_np().all()
+    assert np.allclose(C.to_dense(), want, rtol=1e-6)
 
 
 def test_tropical_semiring_mm_fallback_matches_generic():
-    # on CPU the tropical route falls back to the generic scan; this
-    # verifies the (shared) semantics against the dense oracle through
-    # the public API
+    # sparse operands: absent entries must not take part in the min;
+    # checked against the dense oracle through the public API
     rng = np.random.default_rng(61)
     mask = rng.random((40, 40)) < 0.4
     Ad = (rng.random((40, 40)) * mask).astype(np.float32)
@@ -433,9 +471,6 @@ def test_csr_mxv_sorted_matches_gather(monkeypatch, srname, ty):
     """The zero-gather sort-routed dense-x kernel must agree exactly
     with the gather kernel for every eligible semiring/dtype."""
     import graphblas_tpu.sparse.spmv as spmv_mod
-    import graphblas_tpu.sparse.pallas_spmv as pspmv_mod
-    # compare the two XLA kernels: keep the Pallas BSR engine out of the way
-    monkeypatch.setattr(pspmv_mod, "bsr_spmv_ok", lambda *a, **k: False)
     t = getattr(gb, ty)
     rng = np.random.default_rng(11)
     n, m = 60, 45
@@ -492,151 +527,148 @@ def test_csr_mxv_sorted_excludes_fp64_and_sparse_x(monkeypatch):
                                 D @ x, 0))
 
 
-# -- Pallas BSR SpMV (single-dispatch dense-x engine) -------------------------
-def _bsr_spmv_ref(I, J, X, x, m, n):
-    D = np.zeros((m, n), np.float32)
-    D[I, J] = X
-    return D @ x, (np.bincount(I, minlength=m) > 0)
+# -- dense-x SpMV kernels (gather and sort-routed) ---------------------------
+def _spmv_ref(I, J, X, x, m, n):
+    D = np.zeros((m, n), np.float64)
+    np.add.at(D, (I, J), X)
+    return D @ x.astype(np.float64), (np.bincount(I, minlength=m) > 0)
 
 
-def test_bsr_spmv_matches_gather_kernel():
-    """The single-dispatch Pallas BSR SpMV must agree with the gather
-    kernel (and the dense oracle) on f32 PLUS_TIMES."""
-    from graphblas_tpu.sparse import pallas_spmv as ps
-    rng = np.random.default_rng(7)
-    for m, n, nz in [(300, 450, 4000), (129, 127, 900), (64, 64, 500)]:
-        I = rng.integers(0, m, nz)
-        J = rng.integers(0, n, nz)
-        X = rng.normal(size=nz).astype(np.float32)
-        A = sp.CsrMatrix.from_coo(I, J, X, m, n, type=gb.FP32)
-        I2, J2, X2 = A.extractTuples()
-        x = rng.normal(size=n).astype(np.float32)
-        sr = semiring.plus_times[gb.FP32]
-        y, p = ps.bsr_spmv(sr, A, jnp.asarray(x), interpret=True)
-        ref, refp = _bsr_spmv_ref(np.asarray(I2), np.asarray(J2),
-                                  np.asarray(X2), x, m, n)
-        assert np.array_equal(np.asarray(p), refp)
-        assert np.allclose(np.where(np.asarray(p), np.asarray(y), 0),
-                           np.where(refp, ref, 0), rtol=1e-5, atol=1e-5)
-        # plan and gate are cached on the container
-        assert any(k[0] == "_bsr_spmv_plan" for k in A._options
-                   if isinstance(k, tuple))
+def _both_dense_x_kernels(monkeypatch, A, sr, x):
+    """(y, ypat) from the gather kernel, then from the sorted kernel."""
+    import graphblas_tpu.sparse.spmv as spmv_mod
+    from graphblas_tpu.ops.flopcount import last_axb_method
+    out = []
+    for min_lanes, method in ((1 << 62, "spmv:gather"),
+                              (1, "spmv:sorted")):
+        monkeypatch.setattr(spmv_mod, "_SORTED_MIN_LANES", min_lanes)
+        y, p = sp.csr_mxv(sr, A, jnp.asarray(x))
+        assert last_axb_method() == method
+        out.append((np.asarray(y), np.asarray(p)))
+    return out
 
 
-def test_bsr_spmv_empty_row_blocks_zeroed():
-    """Row blocks with no tiles must still produce zeros (dummy
-    invalid triples zero the VMEM accumulator)."""
-    from graphblas_tpu.sparse import pallas_spmv as ps
+def test_csr_mxv_dense_x_empty_row_blocks(monkeypatch):
+    """Rows with no entries give zero values and an absent pattern on
+    both dense-x kernels, however long the empty stretch."""
     rng = np.random.default_rng(8)
     m, n = 600, 300
-    # entries only in rows [0, 100) and [400, 450): blocks 1-2 empty
     I = np.concatenate([rng.integers(0, 100, 800),
                         rng.integers(400, 450, 300)])
     J = rng.integers(0, n, len(I))
     X = rng.normal(size=len(I)).astype(np.float32)
     A = sp.CsrMatrix.from_coo(I, J, X, m, n, type=gb.FP32)
-    I2, J2, X2 = A.extractTuples()
     x = rng.normal(size=n).astype(np.float32)
-    sr = semiring.plus_times[gb.FP32]
-    y, p = ps.bsr_spmv(sr, A, jnp.asarray(x), interpret=True)
-    ref, refp = _bsr_spmv_ref(np.asarray(I2), np.asarray(J2),
-                              np.asarray(X2), x, m, n)
-    assert np.array_equal(np.asarray(p), refp)
-    assert np.allclose(np.where(np.asarray(p), np.asarray(y), 0),
-                       np.where(refp, ref, 0), rtol=1e-5, atol=1e-5)
-    assert np.all(np.asarray(y)[128:384] == 0)
+    ref, refp = _spmv_ref(I, J, X, x, m, n)
+    for y, p in _both_dense_x_kernels(
+            monkeypatch, A, semiring.plus_times[gb.FP32], x):
+        assert np.array_equal(p, refp)
+        assert np.all(y[100:400] == 0) and np.all(y[450:] == 0)
+        assert np.allclose(np.where(p, y, 0), np.where(refp, ref, 0),
+                           rtol=1e-5, atol=1e-5)
 
 
-def test_bsr_spmv_gate():
-    """The flop-model gate routes only dense-enough f32 PLUS_TIMES."""
-    from graphblas_tpu.sparse import pallas_spmv as ps
-    rng = np.random.default_rng(9)
-    sr32 = semiring.plus_times[gb.FP32]
-    # dense tiles: 2000 nnz in one 128x128 tile region -> qualifies
-    I = rng.integers(0, 100, 2000)
-    J = rng.integers(0, 100, 2000)
-    A = sp.CsrMatrix.from_coo(I, J, np.ones(2000, np.float32), 100, 100,
-                              type=gb.FP32)
-    # the CPU backend gate (ADVICE r2) is bypassed via the per-matrix
-    # override so the flop-model logic itself is what's under test
-    A._options["bsr_spmv"] = True
-    assert ps.bsr_spmv_ok(sr32, A)
-    assert A._options[("_bsr_spmv_ok", 128)] is True
-    # backend gate: plain auto routing stays off on CPU
-    A2 = sp.CsrMatrix.from_coo(I, J, np.ones(2000, np.float32), 100, 100,
-                               type=gb.FP32)
-    assert not ps.bsr_spmv_ok(sr32, A2)
-    # explicit opt-out wins even when forced tiles qualify
-    A3 = sp.CsrMatrix.from_coo(I, J, np.ones(2000, np.float32), 100, 100,
-                               type=gb.FP32)
-    A3._options["bsr_spmv"] = False
-    assert not ps.bsr_spmv_ok(sr32, A3)
-    # scattered entries at ~1 nnz per 128x128 tile -> rejected
-    ri = rng.permutation(4096)[:1000]
-    rj = rng.permutation(4096)[:1000]
-    B = sp.CsrMatrix.from_coo(ri, rj, np.ones(1000, np.float32), 4096,
-                              4096, type=gb.FP32)
-    assert not ps.bsr_spmv_ok(sr32, B)
-    # wrong semiring / dtype -> rejected
-    assert not ps.bsr_spmv_ok(semiring.min_plus[gb.FP32], A)
-    A64 = sp.CsrMatrix.from_coo(I, J, np.ones(2000), 100, 100,
-                                type=gb.FP64)
-    assert not ps.bsr_spmv_ok(semiring.plus_times[gb.FP64], A64)
-
-
-def test_bsr_spmv_sums_duplicates():
-    """Containers built with sum_duplicates=False carry duplicate (i,j)
-    lanes; the BSR tile fill must accumulate them (ADVICE r2), matching
-    the additive semantics of the gather/sorted kernels."""
-    from graphblas_tpu.sparse import pallas_spmv as ps
+def test_csr_mxv_dense_x_sums_duplicates(monkeypatch):
+    """A container built with sum_duplicates=False carries duplicate
+    (i, j) lanes; both dense-x kernels add them."""
     I = np.array([0, 0, 5, 5, 5, 130, 130])
     J = np.array([3, 3, 7, 7, 7, 2, 2])
     X = np.array([1.0, 2.0, 10.0, 20.0, 30.0, 4.0, 5.0], np.float32)
     A = sp.CsrMatrix.from_coo(I, J, X, 200, 200, type=gb.FP32,
                               sum_duplicates=False)
     x = np.arange(1, 201, dtype=np.float32)
-    sr = semiring.plus_times[gb.FP32]
-    y, p = ps.bsr_spmv(sr, A, jnp.asarray(x), interpret=True)
-    y = np.asarray(y)
-    assert np.isclose(y[0], 3.0 * x[3])
-    assert np.isclose(y[5], 60.0 * x[7])
-    assert np.isclose(y[130], 9.0 * x[2])
+    for y, _ in _both_dense_x_kernels(
+            monkeypatch, A, semiring.plus_times[gb.FP32], x):
+        assert np.isclose(y[0], 3.0 * x[3])
+        assert np.isclose(y[5], 60.0 * x[7])
+        assert np.isclose(y[130], 9.0 * x[2])
 
 
-def test_bsr_spmv_plan_dimension_independent():
-    """Plan build memory is O(nnz log ntiles), not O(grid): a 2^23-dim
-    hypersparse matrix with a handful of occupied tiles must plan
-    without a dense block-grid table (ADVICE r2)."""
-    from graphblas_tpu.sparse import pallas_spmv as ps
+def test_csr_mxv_dense_x_huge_dimension():
+    """A 2^23-dimension matrix with three far-apart clusters: the
+    dense-x kernel's work and memory follow nnz and n, with no
+    block-grid table."""
     dim = 1 << 23
-    rng_ = np.random.default_rng(11)
-    # three far-apart dense 128x128 clusters
+    rng = np.random.default_rng(11)
     base = np.array([0, dim // 2, dim - 128], np.int64)
-    I = np.concatenate([b + rng_.integers(0, 128, 2000) for b in base])
-    J = np.concatenate([b + rng_.integers(0, 128, 2000) for b in base])
-    X = rng_.normal(size=len(I)).astype(np.float32)
+    I = np.concatenate([b + rng.integers(0, 128, 2000) for b in base])
+    J = np.concatenate([b + rng.integers(0, 128, 2000) for b in base])
+    X = rng.normal(size=len(I)).astype(np.float32)
     A = sp.CsrMatrix.from_coo(I, J, X, dim, dim, type=gb.FP32)
-    rb, cb, slot, valid, tiles, nrb, ncb, ntiles = ps.bsr_spmv_plan(A)
-    assert ntiles <= 12  # clusters may straddle tile boundaries
-    assert tiles.shape[0] == ntiles
-
-
-def test_csr_mxv_routes_to_bsr_spmv():
-    """csr_mxv auto-dispatches qualifying dense-x calls to the Pallas
-    engine and records the method."""
-    from graphblas_tpu.ops.flopcount import last_axb_method
-    rng = np.random.default_rng(10)
-    m = n = 200
-    I = rng.integers(0, m, 5000)
-    J = rng.integers(0, n, 5000)
-    X = rng.normal(size=5000).astype(np.float32)
-    A = sp.CsrMatrix.from_coo(I, J, X, m, n, type=gb.FP32)
-    A._options["bsr_spmv"] = True  # bypass the CPU backend gate
-    x = rng.normal(size=n).astype(np.float32)
+    x = rng.normal(size=dim).astype(np.float32)
     y, p = sp.csr_mxv(semiring.plus_times[gb.FP32], A, jnp.asarray(x))
-    assert last_axb_method() == "pallas:bsr_spmv"
-    I2, J2, X2 = A.extractTuples()
-    ref, refp = _bsr_spmv_ref(np.asarray(I2), np.asarray(J2),
-                              np.asarray(X2), x, m, n)
-    assert np.allclose(np.where(np.asarray(p), np.asarray(y), 0),
-                       np.where(refp, ref, 0), rtol=1e-5, atol=1e-5)
+    y, p = np.asarray(y), np.asarray(p)
+    rows = np.unique(I)
+    assert np.array_equal(np.nonzero(p)[0], rows)
+    want = np.zeros(len(rows))
+    np.add.at(want, np.searchsorted(rows, I),
+              X.astype(np.float64) * x[J])
+    assert np.allclose(y[rows], want, rtol=1e-5, atol=1e-5)
+    assert not y[~p].any()
+
+
+def test_csr_mxv_routes_dense_x_kernels():
+    """csr_mxv records which dense-x kernel ran: the gather kernel
+    below the sorted path's size gate, the sorted kernel above it."""
+    from graphblas_tpu.ops.flopcount import last_axb_method
+    import graphblas_tpu.sparse.spmv as spmv_mod
+    rng = np.random.default_rng(10)
+    sr = semiring.plus_times[gb.FP32]
+    for nz, method in ((500, "spmv:gather"),
+                       (spmv_mod._SORTED_MIN_LANES, "spmv:sorted")):
+        I = rng.integers(0, 200, nz)
+        J = rng.integers(0, 200, nz)
+        X = rng.normal(size=nz).astype(np.float32)
+        A = sp.CsrMatrix.from_coo(I, J, X, 200, 200, type=gb.FP32,
+                                  sum_duplicates=False)
+        x = rng.normal(size=200).astype(np.float32)
+        y, p = sp.csr_mxv(sr, A, jnp.asarray(x))
+        assert last_axb_method() == method
+        ref, refp = _spmv_ref(I, J, X, x, 200, 200)
+        assert np.array_equal(np.asarray(p), refp)
+        assert np.allclose(np.asarray(y), np.where(refp, ref, 0),
+                           rtol=1e-4, atol=1e-4)
+
+
+def test_csr_mxv_inf_x_against_absent_entry(monkeypatch):
+    """An inf in x meets only the rows that hold an entry in its
+    column; rows without one stay finite on both dense-x kernels (no
+    0 * inf from padding or dense tiles)."""
+    I = np.array([0, 0, 1, 2, 3])
+    J = np.array([0, 1, 1, 2, 3])
+    X = np.ones(5, np.float32)
+    A = sp.CsrMatrix.from_coo(I, J, X, 4, 4, type=gb.FP32)
+    x = np.array([np.inf, 1.0, 2.0, 3.0], np.float32)
+    for y, p in _both_dense_x_kernels(
+            monkeypatch, A, semiring.plus_times[gb.FP32], x):
+        assert p.all()
+        assert np.isposinf(y[0])
+        assert np.array_equal(y[1:], [1.0, 2.0, 3.0])
+
+
+def test_csr_mxv_sorted_path_gate():
+    """The sorted kernel takes only large, 32-bit, non-UDT dense-x
+    calls on concrete patterns, and caches its plan on the container."""
+    import jax
+    import graphblas_tpu.sparse.spmv as spmv_mod
+    rng = np.random.default_rng(9)
+    big = spmv_mod._SORTED_MIN_LANES
+    I = rng.integers(0, 300, big)
+    J = rng.integers(0, 300, big)
+    A = sp.CsrMatrix.from_coo(I, J, np.ones(big, np.float32), 300, 300,
+                              type=gb.FP32, sum_duplicates=False)
+    sr32 = semiring.plus_times[gb.FP32]
+    assert spmv_mod._sorted_path_ok(sr32, A)
+    small = sp.CsrMatrix.from_coo(I[:100], J[:100],
+                                  np.ones(100, np.float32), 300, 300,
+                                  type=gb.FP32)
+    assert not spmv_mod._sorted_path_ok(sr32, small)
+    assert not spmv_mod._sorted_path_ok(semiring.plus_times[gb.FP64], A)
+    # traced patterns (whole-loop jitted solvers) cannot plan on the host
+    seen = []
+    jax.jit(lambda ind: seen.append(spmv_mod._sorted_path_ok(
+        sr32, sp.CsrMatrix(A.indptr, ind, A.rowids, A.values, A.nvals,
+                           300, 300, gb.FP32))) or ind)(A.indices)
+    assert seen == [False]
+    sp.csr_mxv(sr32, A, jnp.ones(300, jnp.float32))
+    assert "_spmv_plan" in A._options

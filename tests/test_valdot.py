@@ -209,7 +209,7 @@ def test_fast_path_and_nonfinite_guard(graph):
 
 def test_public_mxm_routes_through_valdot():
     # the masked CSR mxm auto-select must try valdot and record it
-    # (graph large enough that the dense-MXU small-scale path bows out:
+    # (graph large enough that the dense-matmul small-scale path bows out:
     # m*n > 2^24)
     r = np.random.default_rng(55)
     I, J, n = _powerlaw(r, n=6000, mult=4)
@@ -242,56 +242,44 @@ def test_public_mxm_routes_through_valdot():
         bd._MIN_LANES = old
 
 
-def test_pallas_gatherdot_interpret(graph):
-    """The fused Pallas gather-dot (the TPU fast path for plus_times)
-    in interpret mode vs a numpy oracle: padded live lists, nlive < E,
-    clipped indices, f32 and exact int32."""
-    from graphblas_tpu.sparse.valdot import _pallas_gatherdot
+@pytest.mark.parametrize("dtype,t", [(np.float32, "FP32"),
+                                     (np.int32, "INT32")])
+def test_valdot_pass_matches_numpy(dtype, t):
+    """The XLA gathered-row masked dot over padded live lists vs a numpy
+    oracle: nlive < E, lanes with a negative panel row contribute the
+    identity, both the bitmap-masked pass and the plus_times fast path
+    (zero pads), f32 to roundoff and int32 exactly."""
+    from graphblas_tpu.sparse.valdot import _slot_words, _valdot_pass
     r = np.random.default_rng(5)
-    for dtype, rtol in ((np.float32, 1e-5), (np.int32, 0)):
-        na, nb, S = 96, 80, 1024
-        Av = r.integers(0, 7, (na, 8, S // 8)).astype(dtype)
-        Bv = r.integers(0, 7, (nb, 8, S // 8)).astype(dtype)
-        E, nlive = 384, 301
-        ai = r.integers(-1, na, E).astype(np.int32)   # -1: clip guard
-        bj = r.integers(0, nb, E).astype(np.int32)
-        got = np.asarray(_pallas_gatherdot(
-            jnp.asarray(Av), jnp.asarray(Bv), jnp.asarray(ai),
-            jnp.asarray(bj), nlive, interpret=True))
-        A2 = Av.reshape(na, S)
-        B2 = Bv.reshape(nb, S)
-        want = np.einsum("es,es->e",
-                         A2[np.clip(ai[:nlive], 0, na - 1)],
-                         B2[bj[:nlive]])
-        if rtol:
-            np.testing.assert_allclose(got[:nlive], want, rtol=rtol)
+    sr = semiring.plus_times[getattr(gb, t)]
+    na, nb, S = 96, 80, 1024
+    W = _slot_words(S)
+    Ab = r.integers(0, 1 << 32, (na, W), dtype=np.uint64).astype(np.uint32)
+    Bb = r.integers(0, 1 << 32, (nb, W), dtype=np.uint64).astype(np.uint32)
+    shifts = np.arange(32, dtype=np.uint32)
+
+    def bits(words):
+        return (((words[:, :, None] >> shifts) & 1) != 0
+                ).reshape(len(words), W * 32)[:, :S]
+
+    # values live only under their row's bits, as the plan packs them
+    Av = (r.integers(1, 7, (na, S)) * bits(Ab)).astype(dtype)
+    Bv = (r.integers(1, 7, (nb, S)) * bits(Bb)).astype(dtype)
+    E, nlive = 384, 301
+    ai = r.integers(-1, na, E).astype(np.int32)
+    bj = r.integers(0, nb, E).astype(np.int32)
+    want = np.zeros(E, np.float64)
+    ok = np.arange(E) < nlive
+    ok &= ai >= 0
+    want[ok] = np.einsum("es,es->e", Av[ai[ok]].astype(np.float64),
+                         Bv[bj[ok]].astype(np.float64))
+    for use_bits in (True, False):
+        got = np.asarray(_valdot_pass(
+            sr, jnp.asarray(Av), jnp.asarray(Bv), jnp.asarray(Ab),
+            jnp.asarray(Bb), jnp.asarray(ai), jnp.asarray(bj), nlive,
+            use_bits=use_bits))
+        assert got.shape == (E,)
+        if dtype == np.float32:
+            np.testing.assert_allclose(got, want, rtol=1e-6)
         else:
-            assert np.array_equal(got[:nlive], want)
-
-
-def test_valdot_fused_heavy_interpret(graph, monkeypatch):
-    """End-to-end valdot with the fused kernel forced on (interpret
-    mode on CPU) must match the XLA fast-path result exactly in
-    pattern and to fp tolerance in values."""
-    import graphblas_tpu.sparse.valdot as vd
-    L, U, M = _mk(graph, np.float32, gb.FP32)
-    sr = semiring.plus_times[gb.FP32]
-    ref = csr_spgemm(sr, L, U, mask=M)
-    plan = build_valdot_plan(M, L, U, sr, min_lanes=1)
-    assert plan is not None and plan.finite_ok
-    monkeypatch.setattr(vd.jax, "default_backend", lambda: "tpu")
-    orig = vd._pallas_gatherdot
-    monkeypatch.setattr(
-        vd, "_pallas_gatherdot",
-        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
-    import graphblas_tpu.sparse.bitdot as bd
-    monkeypatch.setattr(bd, "_MIN_LANES", 1)
-    M._options[("valdot_plan", "FP32", "FP32")] = (
-        vd._ref(L.indices), vd._ref(L.values), vd._ref(U.indices),
-        vd._ref(U.values), plan)
-    got = valdot_masked_spgemm(sr, L, U, M)
-    assert got is not None
-    ri, rj, rx = _tosets(ref)
-    gi, gj, gx = _tosets(got)
-    assert np.array_equal(ri, gi) and np.array_equal(rj, gj)
-    np.testing.assert_allclose(rx, gx, rtol=2e-5, atol=2e-6)
+            assert np.array_equal(got, want.astype(np.int64))

@@ -21,6 +21,13 @@ def _banded_csr(n, bw, density, seed):
     return A, pat
 
 
+def _csr_of(pat):
+    I, J = np.nonzero(pat)
+    n = pat.shape[0]
+    return sp.CsrMatrix.from_coo(I, J, np.ones(len(I), bool), n, n,
+                                 type=gb.BOOL), pat
+
+
 def test_window_tricount_banded():
     n, bw = 700, 90
     rng = np.random.default_rng(0)
@@ -63,12 +70,45 @@ def test_window_masked_mm_general():
     assert np.array_equal(got, want)
     # real triple count matches the BSR schedule's definition
     from graphblas_tpu.sparse import bsr
-    from graphblas_tpu.sparse import pallas_bsr as pb
     At = bsr.tile_pattern(Ap)
     Bt = bsr.tile_pattern(Bp.T)
     Mt = bsr.tile_pattern(Mp)
-    sched = pb.build_schedule(Mt, At, Bt)
+    sched = bsr.build_schedule(Mt, At, Bt)
     assert plan.ntriples == (len(sched[1]) if sched else 0)
+
+
+def test_window_count_triton_tricount_interpret():
+    """The Pallas Triton window count (interpret mode) equals the XLA
+    form and the dense oracle on a banded tricount plan."""
+    n, bw = 700, 90
+    rng = np.random.default_rng(0)
+    sym = rng.random((n, n)) < 0.15
+    band = np.abs(np.subtract.outer(np.arange(n), np.arange(n))) <= bw
+    Ap = (sym | sym.T) & band
+    np.fill_diagonal(Ap, False)
+    L, _ = _csr_of(np.tril(Ap))
+    U, _ = _csr_of(np.triu(Ap))
+    plan = W.build_window_plan(L, U, L)
+    assert plan is not None
+    got = int(W.window_count_sum_triton(plan, interpret=True))
+    Af = Ap.astype(np.float64)
+    want = int(round(((Af @ Af) * Af).sum())) // 6
+    assert got == int(W.window_masked_count_sum(plan)) == want
+
+
+def test_window_count_triton_general_interpret():
+    """Unrelated banded A, B, M with n off the 128 grid: the contraction
+    window and the output window differ (W != nJmax), and the padded
+    panel rows and columns must count nothing."""
+    n = 500
+    A, Ap = _banded_csr(n, 70, 0.2, 1)
+    B, Bp = _banded_csr(n, 50, 0.25, 2)
+    M, Mp = _banded_csr(n, 200, 0.3, 3)
+    plan = W.build_window_plan(A, B, M)
+    assert plan is not None and plan.Wmax != plan.nJmax
+    want = int(((Ap.astype(np.int64) @ Bp.T.astype(np.int64)) * Mp).sum())
+    assert int(W.window_count_sum_triton(plan, interpret=True)) == want
+    assert int(W.window_masked_count_sum(plan)) == want
 
 
 def test_window_rejects_unstructured():

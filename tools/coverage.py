@@ -2,7 +2,7 @@
 """Statement-coverage harness — the Tcov analogue.
 
 The reference ships its own coverage tool (``Tcov/``: a source rewriter
-inserting counters at every statement, ``gbcover_edit.m``).  The TPU
+inserting counters at every statement, ``gbcover_edit.m``).  This
 framework's equivalent instruments at runtime with ``sys.monitoring``
 (PEP 669, low overhead) restricted to ``graphblas_tpu/``, runs the test
 suite, and reports per-module executed/executable line percentages.

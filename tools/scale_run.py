@@ -1,7 +1,7 @@
-"""Committed scale evidence (VERDICT round-2 next #6): tricount, BFS
-and PageRank on R-MAT graphs at scale 18 and 20, single chip, honest
-scalar-pull sync.  Prints one JSON line per (algorithm, scale) with
-time, rate, and device memory; PERF.md carries the recorded table.
+"""Scale runs: tricount, BFS and PageRank on R-MAT graphs at scale 18
+and 20 on one device, each timed to a host pull of its result.  Prints
+one JSON line per (algorithm, scale) with time, rate, device memory and
+the device it ran on.
 
 Usage: python tools/scale_run.py [scales...]   (default: 18 20)
 
@@ -74,8 +74,8 @@ def run_tricount(A, n, nnz, scale):
 
 def run_bfs(A, n, nnz, scale, src=0):
     sr = semiring.lor_land[gb.BOOL]
-    # warm the kernel (first compile of this shape can take minutes
-    # through the remote compiler; the measurement is the graph walk)
+    # warm the kernel (the first compile of this shape is set-up; the
+    # measurement is the graph walk)
     qw = jnp.zeros(n, bool).at[src].set(True)
     yw, _ = csr_mxv(sr, A, qw)
     int(jnp.sum(jnp.asarray(yw, bool)))
@@ -140,9 +140,12 @@ def main():
     for scale in scales:
         t0 = time.perf_counter()
         A, n, nnz = build(scale)
+        dev = jax.devices()[0]
         print(json.dumps({"alg": "build", "scale": scale, "n": n,
                           "nnz": nnz,
-                          "time_s": time.perf_counter() - t0}),
+                          "time_s": time.perf_counter() - t0,
+                          "device": {"platform": dev.platform,
+                                     "kind": dev.device_kind}}),
               flush=True)
         if "tricount" in algs:
             run_tricount(A, n, nnz, scale)
